@@ -3,7 +3,7 @@ and write frames (PPM/PNG + optional GIF) — the visual counterpart of the
 CYD's 320x240 display.
 
 Usage:
-  python demo.py                       # 2D dye bed, 150 frames -> /tmp/fluid_demo
+  python demo.py                       # 2D dye bed, 150 frames -> demo_out/
   python demo.py --grid 512 512 --frames 300 --out ./out
   python demo.py --smoke3d             # 3D plume, writes mid-slice frames
   python demo.py --pipeline            # exercise the native host pipeline
@@ -44,8 +44,7 @@ def run_2d(args):
     cfg = SimConfig(shape=(h, w), scaling=args.scaling)
     state = init_state(cfg)
     step = make_step(cfg)
-    print(f"compiling the {h}x{w} step (remote compile can take minutes "
-          f"on a cold service)...", flush=True)
+    print(f"compiling the {h}x{w} step...", flush=True)
     frames = []
     for t in range(args.frames):
         state = step(state, scripted_swirl(cfg, t, speed=args.speed))
@@ -113,13 +112,16 @@ def main():
     ap.add_argument("--every", type=int, default=3)
     ap.add_argument("--scaling", type=int, default=4)
     ap.add_argument("--speed", type=float, default=300.0)
-    ap.add_argument("--out", default="/tmp/fluid_demo")
+    ap.add_argument("--out", default="demo_out")
     ap.add_argument("--smoke3d", action="store_true")
     ap.add_argument("--smoke-view", choices=["mip", "slice"], default="mip",
                     help="3D view reduction (render.smoke): max-intensity "
                          "projection or mid-slice")
     ap.add_argument("--pipeline", action="store_true")
     args = ap.parse_args()
+    from esp32_fluid_simulation_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     os.makedirs(args.out, exist_ok=True)
     if args.smoke3d:
         run_smoke(args)

@@ -1,12 +1,12 @@
-"""esp32_fluid_simulation_tpu — a TPU-native real-time fluid-simulation
-framework with the capabilities of colonelwatch/ESP32-fluid-simulation,
-re-designed from scratch for JAX/XLA/Pallas on TPU.
+"""esp32_fluid_simulation_tpu — a real-time fluid-simulation framework with
+the capabilities of colonelwatch/ESP32-fluid-simulation, re-designed from
+scratch for JAX/XLA on an accelerator.
 
-Layer map (the TPU rendition of SURVEY.md §1):
+Layer map (the accelerator rendition of SURVEY.md §1):
 
   L0  array conventions      channels-first float fields (``state.py``)
-  L1  iteration runtime      XLA fusion + masked stencils / Pallas tiles
-  L2  numerical ops          ``ops/`` (advect, fd, poisson, pallas kernels)
+  L1  iteration runtime      XLA fusion + masked stencils
+  L2  numerical ops          ``ops/`` (advect, fd, poisson, multigrid)
   L3  application runtime    ``models/`` step functions, ``render/``,
                              ``io_host/`` host pipeline, ``parallel/`` meshes
 """

@@ -4,7 +4,7 @@ The reference fixes every parameter at compile time with ``#define``s
 (``ESP32-fluid-simulation.ino:14-41``): ``SCALING 4`` derives the grid
 (``N_ROWS/N_COLS``, ``.ino:36-38``), ``DT (1/30.0f)`` (``.ino:16``), and the
 solver parameters ``iters=10, omega=1.96`` are literals at the call site
-(``.ino:275``).  The TPU-native equivalent is a frozen (hashable) dataclass
+(``.ino:275``).  The JAX equivalent is a frozen (hashable) dataclass
 whose fields become *static* arguments of ``jax.jit`` — every distinct config
 compiles one specialized XLA program, exactly like the reference's
 compile-time specialization, but selectable at runtime.
@@ -28,6 +28,32 @@ REF_DT = 1.0 / 30.0
 REF_SOR_ITERS = 10
 REF_SOR_OMEGA = 1.96
 
+# Options that once selected a hand-written kernel.  The XLA-compiled ops
+# are now the only implementation, so these names are refused with the
+# replacement spelled out rather than silently mapped to another path.
+REMOVED_FIELDS = {
+    "advect_impl": "drop it: advection always runs the XLA-compiled op",
+    "advect_max_disp": "drop it: the single-device advection has no CFL "
+                       "clamp (the sharded step takes max_disp as an "
+                       "argument of make_sharded_step)",
+    "advect_sample_dtype": "drop it: store the dye as bfloat16 with "
+                           "color_dtype instead",
+}
+REMOVED_SOLVERS = {
+    "sor_pallas": "use solver='sor' (same red-black SOR)",
+    "fused_pallas": "use solver='sor' (same divergence -> red-black SOR "
+                    "-> gradient projection)",
+}
+
+
+def reject_removed_fields(fields, removed: dict) -> None:
+    """Raise ``ValueError`` naming the replacement for a removed field."""
+    for name in fields:
+        if name in removed:
+            raise ValueError(
+                f"config field {name!r} was removed; {removed[name]}")
+
+
 _DTYPES = {
     "float32": jnp.float32,
     "bfloat16": jnp.bfloat16,
@@ -50,17 +76,13 @@ class SimConfig:
     dx: float = 1.0
     sor_iters: int = REF_SOR_ITERS
     omega: float = REF_SOR_OMEGA
-    solver: str = "sor"          # sor | sor_adaptive | jacobi | sor_pallas
-    #                            # | multigrid | fused_pallas
+    solver: str = "sor"          # sor | sor_adaptive | jacobi | multigrid
     # sor_adaptive (residual-targeted solve): early-exit once the residual
     # L2 drops below sor_tol, checking every sor_check_every sweeps;
     # sor_iters becomes the budget CAP instead of the fixed count.
     sor_tol: float = 1e-3
     sor_check_every: int = 2
     advector: str = "semilag"    # semilag | rk2 | maccormack
-    advect_impl: str = "auto"    # auto | jnp | pallas (pallas: 2D TPU only)
-    advect_max_disp: int = 12    # CFL clamp (cells/step) for the pallas path
-    advect_sample_dtype: str = "float32"  # bf16: ~2x faster gather, lossy
     vorticity_eps: float = 0.0   # >0 enables vorticity confinement
     dtype: str = "float32"       # compute dtype for fields
     color_dtype: str = "float32"  # dye storage dtype (bf16 halves HBM traffic)
@@ -68,18 +90,26 @@ class SimConfig:
     max_impulses: int = 16       # static impulse-buffer length per step
     mg_levels: int = 0           # 0 = auto for multigrid solver
     mg_cycles: int = 2           # V-cycles per projection (multigrid solver)
-    # Tiled-domain mode (BASELINE config 4 at kernel speed): the grid is a
+    # Tiled-domain mode (BASELINE config 4 as one grid): the grid is a
     # supergrid of independent (mh, mw) member domains — every boundary
     # condition (advect clamps/no-slip, reflected-ghost divergence, Neumann
     # a_ii and zero-ghost sums, gradient clamp) acts per member tile.
     # None = one domain (the normal sim).
     domain_tile: Tuple[int, int] | None = None
 
+    def __new__(cls, *args, **kwargs):
+        # runs before the generated __init__, so a removed field name gets
+        # its ValueError instead of the generic unexpected-keyword TypeError
+        reject_removed_fields(kwargs, REMOVED_FIELDS)
+        return super().__new__(cls)
+
     def __post_init__(self):
         if len(self.shape) not in (2, 3):
             raise ValueError(f"shape must be 2D or 3D, got {self.shape}")
-        if self.solver not in ("sor", "sor_adaptive", "jacobi", "sor_pallas",
-                               "multigrid", "fused_pallas"):
+        if self.solver in REMOVED_SOLVERS:
+            raise ValueError(f"solver {self.solver!r} was removed; "
+                             f"{REMOVED_SOLVERS[self.solver]}")
+        if self.solver not in ("sor", "sor_adaptive", "jacobi", "multigrid"):
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.advector not in ("semilag", "rk2", "maccormack"):
             raise ValueError(f"unknown advector {self.advector!r}")
@@ -91,11 +121,6 @@ class SimConfig:
                 "sor_adaptive needs sor_check_every >= 1 and sor_tol > 0 "
                 f"(got {self.sor_check_every}, {self.sor_tol}); "
                 "check_every=0 would spin the on-device while_loop forever")
-        if self.advect_impl not in ("auto", "jnp", "pallas"):
-            raise ValueError(f"unknown advect_impl {self.advect_impl!r}")
-        if self.advect_sample_dtype not in ("float32", "bfloat16"):
-            raise ValueError(
-                f"unknown advect_sample_dtype {self.advect_sample_dtype!r}")
         if self.domain_tile is not None:
             object.__setattr__(self, "domain_tile",
                                tuple(self.domain_tile))
@@ -107,10 +132,10 @@ class SimConfig:
                     f"domain_tile {self.domain_tile} must divide the grid "
                     f"{self.shape}")
             if self.advector != "semilag" or self.solver not in (
-                    "sor", "fused_pallas", "jacobi"):
+                    "sor", "jacobi"):
                 raise ValueError(
                     "domain_tile supports advector='semilag' with "
-                    "solver='sor'/'jacobi'/'fused_pallas'")
+                    "solver='sor'/'jacobi'")
             if self.vorticity_eps > 0.0:
                 raise ValueError("domain_tile does not support vorticity "
                                  "confinement yet")
@@ -140,7 +165,7 @@ class SimConfig:
     def clamps_dye(self) -> bool:
         """True when ``step`` clamps the dye to [0, 1] every step (semilag /
         rk2 — see ``models.stable_fluids.step``), i.e. stepped color is
-        always in range and renders may use ``unit_range=True``."""
+        always in range."""
         return self.advector in ("semilag", "rk2")
 
     # -- (de)serialization (the reference's off-device harness kept a

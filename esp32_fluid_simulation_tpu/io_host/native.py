@@ -212,10 +212,8 @@ def jpeg_encode_rgbx(rgbx: np.ndarray, quality: int = 85) -> bytes:
     Consumer for ``render.upscale.render_rgbx`` — the full-color wire
     format (the server default is RGB565 + ``rgb565_to_rgb888`` +
     ``jpeg_encode_rgb8``, half the device->host bytes).  The device packs
-    pixels into one uint32 plane — a ``[H, W, 3]`` uint8 device output
-    pads the size-3 minor axis to 128 TPU lanes (~42x layout blowup;
-    measured as a 42 -> 12 FPS sim collapse, round 5) — and libjpeg-turbo
-    consumes the 4-byte pixels directly (JCS_EXT_RGBX, SIMD path)."""
+    pixels into one uint32 plane and libjpeg-turbo consumes the 4-byte
+    pixels directly (JCS_EXT_RGBX, SIMD path)."""
     lib = load_library()
     if not lib.fh_jpeg_rgbx_available():
         raise RuntimeError("libfluidhost built without JCS_EXT_RGBX")

@@ -33,11 +33,10 @@ def stack_impulses(imps) -> Impulses:
 
 
 def _tiled_compatible(cfg: SimConfig) -> bool:
-    """Can this member config run as one kernel-path supergrid step?"""
+    """Can this member config run as one tiled-domain supergrid step?"""
     return (cfg.ndim == 2 and cfg.advector == "semilag"
             and cfg.vorticity_eps == 0.0 and cfg.domain_tile is None
-            and cfg.solver in ("sor", "fused_pallas")
-            and min(cfg.shape) >= 32)
+            and cfg.solver == "sor" and min(cfg.shape) >= 32)
 
 
 def _member_impulse_targets(imp: Impulses, gh: int, gw: int,
@@ -72,37 +71,10 @@ def _apply_member_impulses(vel, imp: Impulses, gh: int, gw: int,
     """Batched per-member impulses onto the supergrid velocity.
 
     ONE scatter for all (member, slot) points (members write to disjoint
-    tiles, so cross-member order is irrelevant): a per-slot ``.at[].set``
-    loop costs 2k full-grid passes (~12 ms/step on a 4096^2 supergrid,
-    measured), this costs one scatter.
-
-    Form A/B (round 5, tools/impulse_apply_ab.py, interleaved in one
-    session): a mask+dense where-overlay — motivated by the two full-grid
-    T(8,128)<->T(2,128) relayout copies XLA wraps around an ISOLATED
-    pallas->scatter->... composition (tools/tiled_gap_probe.py) — measured
-    1.2 ms SLOWER inside the full tiled step (19.4 vs 18.2 ms at 4096^2);
-    in the whole program XLA's layout assignment absorbs the scatter
-    without both copies, and the overlay's extra build+where passes lose.
-    The direct scatter stays for the non-kernel paths; the kernel path
-    drains impulses at the advect store instead
-    (``_member_impulse_overlay``)."""
+    tiles, so cross-member order is irrelevant); a per-slot ``.at[].set``
+    loop would cost 2k full-grid passes."""
     rows, cols, vals = _member_impulse_targets(imp, gh, gw, mh, mw)
     return vel.at[:, rows, cols].set(vals.astype(vel.dtype), mode="drop")
-
-
-def _member_impulse_overlay(imp: Impulses, gh: int, gw: int,
-                            mh: int, mw: int) -> jax.Array:
-    """Member impulses as the advect kernel's ``[3, H, W]`` store-time
-    overlay (``models.stable_fluids.impulse_overlay`` semantics, supergrid
-    targets): one tiny scatter into fresh zeros replaces the
-    scatter-on-velocity between the Pallas advect and projection calls."""
-    rows, cols, vals = _member_impulse_targets(imp, gh, gw, mh, mw)
-    H, W = gh * mh, gw * mw
-    k = vals.shape[1]
-    combo = jnp.concatenate(
-        [vals.astype(jnp.float32), jnp.ones((1, k), jnp.float32)], axis=0)
-    full = jnp.zeros((3, H + 1, W), jnp.float32)
-    return full.at[:, rows, cols].set(combo, mode="drop")[:, :H]
 
 
 def _resolve_tiled(cfg: SimConfig, mode: str) -> bool:
@@ -111,16 +83,13 @@ def _resolve_tiled(cfg: SimConfig, mode: str) -> bool:
         raise ValueError(f"unknown ensemble mode {mode!r}")
     if mode == "tiled" and not _tiled_compatible(cfg):
         raise ValueError("config is not tiled-ensemble compatible "
-                         "(needs 2D semilag, no vorticity, sor/fused "
-                         "solver)")
+                         "(needs 2D semilag, no vorticity, sor solver)")
     return _tiled_compatible(cfg) if mode == "auto" else mode == "tiled"
 
 
-# vmap fallback becomes an error (not a silent ~100x slowdown) at this
-# member count when mode="auto" — measured at BASELINE config 4 scale the
-# batched-small-programs path runs ~0.4 whole-ensemble steps/s vs ~49
-# through the tiled supergrid (BENCH_r03).  Small ensembles stay quiet:
-# the vmap overhead only compounds at scale.
+# mode="auto" refuses to fall back to the per-member vmap path from this
+# member count on: a large ensemble that silently lost its supergrid route
+# is a configuration mistake worth surfacing.  Small ensembles stay quiet.
 _AUTO_VMAP_GUARD_N = 64
 
 
@@ -130,11 +99,9 @@ def _guard_auto_vmap(cfg: SimConfig, n: int) -> None:
             f"mode='auto' fell back to the vmap ensemble path for n={n} "
             f"members — this config ({cfg.advector=}, "
             f"{cfg.vorticity_eps=}, {cfg.solver=}) is not tiled-supergrid "
-            f"compatible and the vmapped batch is ~100x slower at this "
-            f"scale (BENCH_r03: 0.4 vs 49 ensemble steps/s).  Pass "
-            f"mode='vmap' explicitly to accept that cost, or use a "
-            f"tiled-compatible member config (2D semilag, no vorticity, "
-            f"solver='sor'/'fused_pallas').")
+            f"compatible.  Pass mode='vmap' explicitly to run the batched "
+            f"per-member programs, or use a tiled-compatible member config "
+            f"(2D semilag, no vorticity, solver='sor').")
 
 
 def _to_super(state: SimState, cfg_super: SimConfig) -> SimState:
@@ -163,8 +130,7 @@ def make_ensemble_step(cfg: SimConfig, donate: bool = True,
 
     ``mode="auto"`` (default) routes compatible configs onto the tiled-
     domain supergrid — members become tiles of one big grid and the whole
-    ensemble advances in ONE kernel-path step (~175x the vmapped batch at
-    BASELINE config 4 scale; VERDICT r2 weak #5).  ``"vmap"`` forces the
+    ensemble advances in ONE step.  ``"vmap"`` forces the
     batched-small-programs path (also the parity oracle); ``"tiled"``
     requires a compatible config."""
     if not _resolve_tiled(cfg, mode):
@@ -186,9 +152,7 @@ def make_ensemble_step(cfg: SimConfig, donate: bool = True,
         apply_fn = functools.partial(_apply_member_impulses, imp=imps,
                                      gh=gh, gw=gw, mh=mh, mw=mw)
         out = _step_tiled(_to_super(state, cfg_super), None, cfg_super,
-                          apply_fn=lambda v: apply_fn(v),
-                          overlay=_member_impulse_overlay(imps, gh, gw,
-                                                          mh, mw))
+                          apply_fn=apply_fn)
         return _from_super(out, cfg, n)
 
     return jax.jit(fn, donate_argnums=(0,) if donate else ())
@@ -203,8 +167,7 @@ def make_ensemble_multi_step(cfg: SimConfig, donate: bool = True,
     n_members]`` axes (``stable_fluids.stack_schedule`` over per-step
     ``stack_impulses`` results).  Unlike stepping ``make_ensemble_step`` in
     a host loop, the tiled route converts member-stack <-> supergrid layout
-    ONCE per call instead of every step — the per-step conversion is about
-    half the step cost at BASELINE config 4 scale — and the whole forcing
+    ONCE per call instead of every step, and the whole forcing
     schedule uploads in one transfer (the ensemble analogue of
     ``make_multi_step``)."""
     if not _resolve_tiled(cfg, mode):
@@ -230,9 +193,7 @@ def make_ensemble_multi_step(cfg: SimConfig, donate: bool = True,
             apply_fn = functools.partial(_apply_member_impulses, imp=imp,
                                          gh=gh, gw=gw, mh=mh, mw=mw)
             return _step_tiled(st, None, cfg_super,
-                               apply_fn=lambda v: apply_fn(v),
-                               overlay=_member_impulse_overlay(
-                                   imp, gh, gw, mh, mw)), None
+                               apply_fn=apply_fn), None
 
         out, _ = jax.lax.scan(body, _to_super(state, cfg_super), schedule)
         return _from_super(out, cfg, n)
@@ -240,13 +201,11 @@ def make_ensemble_multi_step(cfg: SimConfig, donate: bool = True,
     return jax.jit(run, donate_argnums=(0,) if donate else ())
 
 
-def tiled_ensemble_config(member_cfg: SimConfig, n: int,
-                          solver: str = "fused_pallas"):
-    """Supergrid config for n member domains (BASELINE config 4 at kernel
-    speed): members become tiles of one big grid and every boundary
+def tiled_ensemble_config(member_cfg: SimConfig, n: int):
+    """Supergrid config for n member domains (BASELINE config 4 as one
+    grid): members become tiles of one big grid and every boundary
     condition acts per tile (``SimConfig.domain_tile``), so the whole
-    ensemble advances in ONE kernel-path step instead of a vmapped batch of
-    small programs.  Returns (supergrid_cfg, gh, gw)."""
+    ensemble advances in ONE step.  Returns (supergrid_cfg, gh, gw)."""
     import dataclasses
     import math
     gh = int(math.sqrt(n))
@@ -255,8 +214,7 @@ def tiled_ensemble_config(member_cfg: SimConfig, n: int,
     gw = n // gh
     h, w = member_cfg.shape
     return dataclasses.replace(
-        member_cfg, shape=(gh * h, gw * w), domain_tile=(h, w),
-        solver=solver), gh, gw
+        member_cfg, shape=(gh * h, gw * w), domain_tile=(h, w)), gh, gw
 
 
 def tiled_member_impulses(cfg_super: SimConfig, member_cfg: SimConfig,

@@ -10,7 +10,7 @@ A second model family on the same op stack: the reference's dye-bed loop
 * a source region that continuously injects density/temperature (the plume),
 * optional per-step dissipation.
 
-All spatial ops are the rank-polymorphic kernels from ``ops/`` (advect,
+All spatial ops are the rank-polymorphic ops from ``ops/`` (advect,
 divergence, SOR/multigrid projection, gradient subtract) running in 3D.
 """
 
@@ -24,10 +24,24 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from ..config import reject_removed_fields
 from ..ops.advect import advect
 from ..ops.fd import divergence, subtract_gradient
 from ..ops.poisson import sor_solve
 from ..ops.multigrid import multigrid_solve
+
+
+# Fields that once selected a hand-written 3D kernel (see
+# ``config.REMOVED_FIELDS``): refused with the replacement spelled out.
+REMOVED_SMOKE_FIELDS = {
+    "advect_impl": "drop it: advection always runs the XLA-compiled op",
+    "advect_max_disp": "drop it: the single-device advection has no CFL "
+                       "clamp (the sharded step takes max_disp as an "
+                       "argument of make_sharded_smoke_step)",
+    "sor_impl": "drop it: solver='sor' always runs the XLA-compiled "
+                "red-black SOR",
+    "sor_chunk": "drop it: the XLA-compiled SOR has no launch chunks",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,24 +49,12 @@ class SmokeConfig:
     shape: Tuple[int, int, int] = (64, 64, 64)  # (D=vertical, H, W)
     dt: float = 1.0 / 30.0
     dx: float = 1.0
-    # Default RB-SOR, like the reference (its ONE solver is its fast path,
-    # poisson.cpp:14-61) — and the solver every 3D kernel serves: the
-    # packed-RB sor3d kernel auto-engages from 128^3 (VERDICT r3 missing
-    # #3: the old multigrid default bypassed all of them; multigrid stays
-    # the config-3-style opt-in and the sharded coarse-ladder option).
+    # Default RB-SOR, like the reference (its ONE solver, poisson.cpp:14-61);
+    # multigrid is the config-3-style opt-in and the sharded coarse-ladder
+    # option.
     solver: str = "sor"            # sor | multigrid
     sor_iters: int = 10
     omega: float = 1.5
-    advect_impl: str = "auto"      # auto | jnp | pallas (3D gather kernel)
-    # CFL clamp (cells/step) for the kernel.  The z-halo scales the advect
-    # window: at the (2, 64) production tiles a program fetches
-    # 2*(max_disp+1)+2 planes for 2 output planes, so max_disp=4 pays 6x
-    # read amplification (measured 3x the whole default step at 256^3,
-    # round 4).  2 keeps a 40x margin over the plume's measured ~0.05
-    # cells/step backtrace; raise it for fast external flows.
-    advect_max_disp: int = 2
-    sor_impl: str = "auto"         # auto | jnp | pallas (3D packed-RB kernel)
-    sor_chunk: int = 3             # SOR sweeps per kernel launch (halo trade)
     mg_cycles: int = 1
     buoyancy_alpha: float = 8.0    # thermal lift
     buoyancy_beta: float = 2.0     # smoke weight
@@ -67,11 +69,14 @@ class SmokeConfig:
     # velocity and pressure always run in ``dtype``.  Default "bfloat16"
     # mirrors the reference's own reduced-precision dye storage (UQ32 fixed
     # point, uq32.h): the smoke scalars are render-bound quantities, and
-    # the 3D advect kernel's packed-pair bf16 gathers make their advection
-    # ~2.3x faster (9.8 -> 4.3 ms at 256^3).  The f32-vs-bf16 plume A/B is
-    # pinned in tests/test_models_extra.py::test_smoke_bf16_scalars (total
-    # smoke mass within a few percent after 25 steps).
+    # bf16 halves their gather and HBM traffic.  The f32-vs-bf16 plume A/B
+    # is pinned in tests/test_models_extra.py::test_smoke_bf16_scalars
+    # (total smoke mass within a few percent after 25 steps).
     scalar_dtype: str = "bfloat16"
+
+    def __new__(cls, *args, **kwargs):
+        reject_removed_fields(kwargs, REMOVED_SMOKE_FIELDS)
+        return super().__new__(cls)
 
     @property
     def jdtype(self):
@@ -112,59 +117,14 @@ def init_smoke(cfg: SmokeConfig) -> SmokeState:
     )
 
 
-def _use_pallas_advect3d(cfg: SmokeConfig) -> bool:
-    if cfg.advect_impl == "pallas":
-        return True
-    if cfg.advect_impl == "jnp":
-        return False
-    # auto: the Pallas 3D gather kernel wins on TPU from ~64^3 up (XLA's
-    # gather runs at ~1e8 pts/s; the kernel's CFL-banded panel gathers at
-    # effective memory bandwidth)
-    d, h, w = cfg.shape
-    return d * h * w >= 64 ** 3 and jax.default_backend() == "tpu"
-
-
-def _use_pallas_sor3d(cfg: SmokeConfig) -> bool:
-    if cfg.solver != "sor" or cfg.jdtype != jnp.float32:
-        return False
-    if cfg.sor_impl == "pallas":
-        return True
-    if cfg.sor_impl == "jnp":
-        return False
-    # auto: the packed-RB 3D kernel keeps a whole sweep chunk in VMEM
-    # (2*chunk fewer full-grid HBM round trips per launch); wins on TPU
-    # from ~128^3 up
-    d, h, w = cfg.shape
-    return d * h * w >= 128 ** 3 and jax.default_backend() == "tpu"
-
-
 def smoke_step(state: SmokeState, cfg: SmokeConfig) -> SmokeState:
     dt = cfg.dt
     vel, rho, temp = state.velocity, state.density, state.temperature
 
     # 1. advect everything through the current flow
-    if _use_pallas_advect3d(cfg):
-        from ..ops.pallas.advect3d import advect3d_pallas
-        md = cfg.advect_max_disp
-        # Per-call tiles from the post-restructure on-device sweep at 256^3
-        # (2026-08-18; the round-2 winner (8, 32) re-measured 9.6/3.4 ms):
-        # the f32 no-slip velocity advect wants thin-deep (2, 64) windows
-        # (6.5 ms), the packed-bf16 scalar pair wants (2, 128) (1.3 ms).
-        # At max_disp >= 2 the z-halo dominates thin tiles (td+2(md+1)
-        # planes fetched for td produced), so the velocity advect switches
-        # to (4, 32): 25.3 -> 19.6 ms at md=2 in the round-4 sweep.
-        vd, vh = (2, 64) if md <= 1 else (4, 32)
-        vel = advect3d_pallas(vel, vel, dt, no_slip=True, max_disp=md,
-                              tile_d=vd, tile_h=vh)
-        # rho+temp share one backtrace (same velocity): one 2-channel call
-        scal = advect3d_pallas(jnp.stack([rho, temp]), vel, dt,
-                               no_slip=False, max_disp=md,
-                               tile_d=2, tile_h=128)
-        rho, temp = scal[0], scal[1]
-    else:
-        vel = advect(vel, vel, dt, no_slip=True)
-        rho = advect(rho, vel, dt, no_slip=False)
-        temp = advect(temp, vel, dt, no_slip=False)
+    vel = advect(vel, vel, dt, no_slip=True)
+    rho = advect(rho, vel, dt, no_slip=False)
+    temp = advect(temp, vel, dt, no_slip=False)
 
     # 2. inject the plume source
     src = jnp.asarray(_source_mask(cfg), cfg.sdtype)
@@ -181,32 +141,13 @@ def smoke_step(state: SmokeState, cfg: SmokeConfig) -> SmokeState:
         from ..ops.fd import vorticity_confinement
         vel = vorticity_confinement(vel, cfg.vorticity_eps, dt, cfg.dx)
 
-    # 4. pressure projection (same Neumann system as 2D, in 3D).  The
-    # div/grad stencils also go through kernels on big TPU grids: XLA's
-    # pad/slice lowering of the 3D concat stencils runs ~25x below
-    # bandwidth at 256^3 (measured ~20 ms vs the kernel's ~1 ms).
-    use_fd_kernel = (cfg.jdtype == jnp.float32
-                     and cfg.shape[0] * cfg.shape[1] * cfg.shape[2]
-                     >= 128 ** 3 and jax.default_backend() == "tpu"
-                     and cfg.advect_impl != "jnp")
-    if use_fd_kernel:
-        from ..ops.pallas.fd3d import (divergence3d_pallas,
-                                       subtract_gradient3d_pallas)
-        div = divergence3d_pallas(vel, cfg.dx)
-    else:
-        div = divergence(vel, cfg.dx)
+    # 4. pressure projection (same Neumann system as 2D, in 3D)
+    div = divergence(vel, cfg.dx)
     if cfg.solver == "multigrid":
         p = multigrid_solve(div, cfg.dx, cycles=cfg.mg_cycles)
-    elif _use_pallas_sor3d(cfg):
-        from ..ops.pallas.sor3d import sor3d_packed_pallas
-        p = sor3d_packed_pallas(div, cfg.dx, cfg.sor_iters, cfg.omega,
-                                chunk=cfg.sor_chunk)
     else:
         p = sor_solve(div, cfg.dx, cfg.sor_iters, cfg.omega)
-    if use_fd_kernel:
-        vel = subtract_gradient3d_pallas(vel, p, cfg.dx)
-    else:
-        vel = subtract_gradient(vel, p, cfg.dx)
+    vel = subtract_gradient(vel, p, cfg.dx)
 
     # 5. optional dissipation
     if cfg.dissipation > 0:

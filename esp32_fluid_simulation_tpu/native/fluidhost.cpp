@@ -1,4 +1,4 @@
-// fluidhost: native host runtime for the TPU fluid framework.
+// fluidhost: native host runtime for the fluid framework.
 //
 // The reference's application runtime is C++ on FreeRTOS: a lossy 10-deep
 // drag queue between the touch and sim tasks (xQueueCreate/xQueueSend,
@@ -6,7 +6,7 @@
 // producer/consumer handshake guarding the color buffer (.ino:58-59,
 // 111,189,285,288), a 100 Hz poll pacer (.ino:94), and RGB565 pixel packing
 // for the display DMA (.ino:164-176).  This library is the host-side
-// equivalent for a TPU pipeline: the sim thread (JAX dispatch) and the
+// equivalent for a device pipeline: the sim thread (JAX dispatch) and the
 // frame-consumer thread (device_get + encode/display) synchronize through
 // the same primitives, and the pixel conversion runs natively off the GIL.
 //
@@ -276,11 +276,9 @@ int64_t fh_jpeg_encode_rgb8(const uint8_t *rgb, int32_t w, int32_t h,
 #endif  // FH_WITH_JPEG
 
 // Encode packed RGBX8888 (one uint32/px, little-endian R|G<<8|B<<16) ->
-// JPEG.  This is the production stream path: the device packs pixels into
-// ONE uint32 plane — a [H, W, 3] uint8 layout would pad the size-3 minor
-// axis to 128 TPU lanes (~42x relayout blowup, measured as a 42 -> 12 FPS
-// sim collapse, round 5) — and libjpeg-turbo's JCS_EXT_RGBX consumes the
-// 4-byte pixels directly at SIMD speed.
+// JPEG.  The full-color stream path: the device packs pixels into ONE
+// uint32 plane and libjpeg-turbo's JCS_EXT_RGBX consumes the 4-byte pixels
+// directly at SIMD speed.
 int64_t fh_jpeg_encode_rgbx(const uint8_t *rgbx, int32_t w, int32_t h,
                             int32_t quality, uint8_t *out, int64_t out_cap) {
 #if defined(FH_WITH_JPEG) && defined(JCS_EXTENSIONS)

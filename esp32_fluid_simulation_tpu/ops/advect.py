@@ -11,7 +11,7 @@ vectorized over the whole grid instead of per-cell branches:
 * out of bounds on any axis: collapse that axis to the boundary node and lerp
   only along the in-bounds axes (``advect.h:44-55``) — mathematically equal
   to multilinear interpolation at the *clamped* coordinate, which is how it
-  is computed here (one code path, no branches, TPU-friendly);
+  is computed here (one code path, no branches, one fused XLA loop);
 * optional no-slip discount: a sample past the wall is attenuated linearly to
   zero over half a cell of overshoot, per out-of-bounds axis
   (``advect.h:57-71``).

@@ -1,12 +1,13 @@
 """Poisson pressure solvers: checkerboard red-black SOR, Jacobi, residuals.
 
 Capability match for the reference's RB-SOR solver (``poisson.cpp``, 132 LoC),
-re-designed for TPU.  The reference serializes a checkerboard traversal with
-a ``goto``-driven two-color sweep (``poisson.cpp:14-61``); the checkerboard
+re-designed for a data-parallel device.  The reference serializes a
+checkerboard traversal with a ``goto``-driven two-color sweep
+(``poisson.cpp:14-61``); the checkerboard
 split exists precisely because all same-color updates are independent — i.e.
 it is latent data parallelism.  Here each half-sweep is one vectorized masked
 stencil update over the whole grid: the lanes the ESP32 walked serially run
-in parallel on the VPU, and the black half-sweep reads the freshly-updated
+in parallel on the device, and the black half-sweep reads the freshly-updated
 red cells, preserving exact Gauss-Seidel red-black semantics (modulo float
 reassociation; the test oracle pins this down).
 
@@ -209,9 +210,6 @@ def poisson_solve(d: jax.Array, cfg) -> jax.Array:
         # Jacobi diverges for omega > 1 (no Gauss-Seidel coupling to damp the
         # over-relaxation), so the SOR omega is capped at 1 here.
         return jacobi_solve(d, cfg.dx, cfg.sor_iters, min(cfg.omega, 1.0))
-    if cfg.solver == "sor_pallas":
-        from .pallas.sor import sor_solve_pallas
-        return sor_solve_pallas(d, cfg.dx, cfg.sor_iters, cfg.omega)
     if cfg.solver == "multigrid":
         from .multigrid import multigrid_solve
         return multigrid_solve(d, cfg.dx, cycles=cfg.mg_cycles,

@@ -2,8 +2,8 @@
 
 The reference's comm backend is FreeRTOS queues + semaphores on shared SRAM
 (``ESP32-fluid-simulation.ino:49,58-59``).  Scaled out, intra-step halo
-traffic rides ICI collectives (``parallel/halo.py``); when the device mesh
-spans MULTIPLE HOSTS the same ``shard_map`` program runs unchanged and XLA
+traffic rides the device interconnect's collectives (``parallel/halo.py``);
+when the device mesh spans MULTIPLE HOSTS the same ``shard_map`` program runs unchanged and XLA
 routes the cross-process edges of each collective over DCN — the only new
 ingredient is ``jax.distributed.initialize`` (multi-controller SPMD: every
 process runs this same program and owns its local slice of every global
@@ -15,7 +15,8 @@ CPU stand-in for DCN), builds one global ``(batch, x, y)`` mesh spanning
 all of them, runs the sharded fluid step for several steps, and asserts
 each process's addressable shards match the single-device reference
 trajectory bit-tightly.  The same worker code path is what a real
-multi-host TPU launch runs (swap the platform; drop the gloo config).
+multi-host accelerator launch runs (swap the platform; drop the gloo
+config).
 
 Used by ``tests/test_dcn.py`` and ``__graft_entry__.dryrun_multichip``.
 """

@@ -6,9 +6,9 @@ means each stencil application needs the neighbor shard's edge strip — the
 grid-world equivalent of ring attention's block rotation (SURVEY.md §5).
 
 ``exchange_halo`` runs inside ``shard_map``: it ships ``width``-wide strips
-to both neighbors along one mesh axis with ``jax.lax.ppermute`` (ICI
-neighbor traffic, no all-to-all) and fills the two *global* edges according
-to the physical boundary condition:
+to both neighbors along one mesh axis with ``jax.lax.ppermute`` (neighbor
+traffic over the device interconnect, no all-to-all) and fills the two
+*global* edges according to the physical boundary condition:
 
 * ``zero``        — zero ghosts (SOR neighbor sums, advect windows);
 * ``edge``        — clamp to the edge value (Neumann pressure gradient,

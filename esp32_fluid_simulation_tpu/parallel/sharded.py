@@ -2,9 +2,9 @@
 under ``shard_map`` over a ``(batch, x, y)`` device mesh.
 
 Every field is partitioned over the trailing two spatial axes; each stencil
-pass exchanges exactly the strips it needs over ICI (``parallel.halo``), and
-the boundary-condition kernels fire only on the shards that own a global
-edge — the distributed rendition of the reference's interior-fast /
+pass exchanges exactly the strips it needs over the device interconnect
+(``parallel.halo``), and the boundary conditions apply only on the shards
+that own a global edge — the distributed rendition of the reference's interior-fast /
 boundary-safe dispatch (``operations.h:11-38``).  Collective budget per step:
 
 * advection: one ``max_disp+1``-wide exchange per axis per advected field
@@ -76,7 +76,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
     """Build a jitted sharded ``step(state, impulses) -> state``.
 
     ``max_disp``: advection CFL clamp in cells — sets the halo width, so it
-    bounds ICI traffic as well as the backtrace (see ops/pallas/advect.py).
+    bounds interconnect traffic as well as the backtrace.
     ``sor_halo``: pressure-halo depth; k trades k-ring redundant compute for
     ~k-fold fewer SOR collectives (see ``sor_local``).
     ``with_metrics``: return ``(state, metrics)`` with mesh-reduced
@@ -97,23 +97,17 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         # supergrid lives in make_sharded_tiled_step.
         raise NotImplementedError(
             "make_sharded_step does not run domain_tile configs; use "
-            "parallel.sharded_tiled.make_sharded_tiled_step (kernel block "
-            "mode composes with member walls) or a single device")
+            "parallel.sharded_tiled.make_sharded_tiled_step (shards own "
+            "whole member tiles) or a single device")
     if cfg.advector not in ("semilag", "maccormack", "rk2"):
         raise NotImplementedError(
             f"sharded step supports advector='semilag'/'maccormack'/'rk2', "
             f"got {cfg.advector!r} (silently substituting would change "
             f"physics vs the single-device run)")
-    if cfg.solver not in ("sor", "jacobi", "multigrid", "sor_pallas",
-                          "fused_pallas"):
+    if cfg.solver not in ("sor", "jacobi", "multigrid"):
         raise NotImplementedError(
-            f"sharded step supports solver='sor'/'jacobi'/'multigrid'/"
-            f"'sor_pallas'/'fused_pallas', got {cfg.solver!r}")
-    # kernel paths: each shard runs the flagship Pallas kernel on its local
-    # block + one exchanged halo (the kernels take a traced global offset
-    # for their boundary-condition masks — see ops/pallas/*.py block mode)
-    use_kernel_advect = (cfg.advect_impl == "pallas"
-                         and cfg.advector in ("semilag", "maccormack"))
+            f"sharded step supports solver='sor'/'jacobi'/'multigrid', "
+            f"got {cfg.solver!r}")
     H, W = cfg.shape
     nx = mesh.shape[X_AXIS]
     ny = mesh.shape[Y_AXIS]
@@ -128,16 +122,6 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
                      return_minmax=False):
         """Backtrace + gather in a k-halo window; global-coordinate clamps."""
         fpad = _exchange2(field, k, nx, ny)
-        if use_kernel_advect:
-            # flagship gather kernel on the local block (ops/pallas/advect);
-            # return_minmax rides the same block mode (the sharded
-            # MacCormack predictor's clamp bounds, VERDICT r2 lever)
-            from ..ops.pallas.advect import advect_pallas
-            goff = jnp.stack([ox, oy]).astype(jnp.int32)
-            v = vel if sign == 1.0 else -vel
-            return advect_pallas(fpad, v, dt, no_slip, max_disp=max_disp,
-                                 global_offset=goff, global_shape=(H, W),
-                                 halo=k, return_minmax=return_minmax)
         v0 = vel[0].astype(f32)
         v1 = vel[1].astype(f32)
         gi = ii.astype(f32)
@@ -245,8 +229,8 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         (minimum traffic, maximum collective count).  ``sor_halo = k``
         exchanges a k-wide strip once per k half-sweeps and runs those
         half-sweeps on the extended block — each half-sweep invalidates one
-        ring, so the owned block stays exact (the shard_map rendition of the
-        fused Pallas kernel's trapezoidal tiling).  Collectives per solve
+        ring, so the owned block stays exact (trapezoidal tiling).
+        Collectives per solve
         drop from ``2*iters`` to ``ceil(2*iters/k) (+1 for d's halo``).
         Global parity and the Neumann diagonal follow poisson.cpp:10-12,
         67-89.
@@ -445,34 +429,13 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
                             vel)
         return vel
 
-    def solve_local(div, ii, jj, goff):
-        """Pressure solve, solver-dispatched.  The Pallas solver runs the
-        whole solve shard-locally after ONE wide halo exchange (trapezoidal
-        validity), vs 2*iters exchanges for composed SOR."""
-        if cfg.solver == "sor_pallas":
-            from ..ops.pallas.sor import sor_solve_pallas
-            g2 = 2 * cfg.sor_iters
-            dpad = _exchange2(div, g2, nx, ny)
-            return sor_solve_pallas(dpad, dx, cfg.sor_iters, cfg.omega,
-                                    global_offset=goff, global_shape=(H, W),
-                                    halo=g2)
-        if cfg.solver == "multigrid":
-            return mg_local(div, ii, jj)
-        return sor_local(div, ii, jj)
-
-    def project_local(vel, ii, jj, ox, oy, want_p=False):
+    def project_local(vel, ii, jj, want_p=False):
         """Pressure projection; returns (vel, p or None)."""
-        goff = jnp.stack([ox, oy]).astype(jnp.int32)
-        if cfg.solver == "fused_pallas":
-            from ..ops.pallas.project import project_fused_pallas
-            g2 = 2 * cfg.sor_iters + 2
-            vpad = _exchange2(vel, g2, nx, ny)
-            vout, p = project_fused_pallas(
-                vpad, dx, cfg.sor_iters, cfg.omega,
-                global_offset=goff, global_shape=(H, W), halo=g2)
-            return vout, (p if want_p else None)
         div = divergence_local(vel)
-        p = solve_local(div, ii, jj, goff)
+        if cfg.solver == "multigrid":
+            p = mg_local(div, ii, jj)
+        else:
+            p = sor_local(div, ii, jj)
         return gradient_sub_local(vel, p), (p if want_p else None)
 
     def gmax(x):
@@ -499,7 +462,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         if cfg.vorticity_eps > 0.0:
             vel = vorticity_local(vel)
         div_pre = divergence_local(vel) if want_metrics else None
-        vel, p = project_local(vel, ii, jj, ox, oy, want_p=want_metrics)
+        vel, p = project_local(vel, ii, jj, want_p=want_metrics)
         color = advect_dispatch(state.color, vel, ii, jj, ox, oy,
                                 no_slip=False)
         if cfg.advector != "maccormack":

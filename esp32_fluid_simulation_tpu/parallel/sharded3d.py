@@ -6,11 +6,9 @@ Decomposition follows the 3D smoke model (``parallel.sharded_smoke``): the
 vertical axis (D, axis -3) stays local to every shard; the horizontal axes
 shard over the ``(x, y)`` mesh with halo windows for the advection backtrace,
 per-half-sweep (or ``sor_halo``-deep trapezoidal) pressure halos, and
-boundary-condition kernels that fire only on shards owning a global edge —
-the distributed rendition of the reference's interior-fast / boundary-safe
-dispatch (``operations.h:11-38``) in 3D.  The kernel path runs the 3D gather
-(``ops/pallas/advect3d`` block mode) and packed-RB chunk
-(``ops/pallas/sor3d``) per shard.
+boundary conditions applied only on shards owning a global edge — the
+distributed rendition of the reference's interior-fast / boundary-safe
+dispatch (``operations.h:11-38``) in 3D.
 
 Parity vs the single-device 3D ``step`` is pinned in
 ``tests/test_sharded3d.py`` on the 8-virtual-device CPU mesh.
@@ -38,8 +36,7 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
 
     Same contract as ``parallel.sharded.make_sharded_step`` (which
     dispatches here for ``cfg.ndim == 3``).  Supported: advector
-    semilag/rk2/maccormack (kernel path: semilag with
-    ``advect_impl='pallas'``), solver sor/jacobi/multigrid/sor_pallas.
+    semilag/rk2/maccormack, solver sor/jacobi/multigrid.
     """
     D, H, W = cfg.shape
     nx = mesh.shape[X_AXIS]
@@ -51,18 +48,10 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         raise NotImplementedError(
             f"sharded 3D step supports advector='semilag'/'maccormack'/"
             f"'rk2', got {cfg.advector!r}")
-    if cfg.solver not in ("sor", "jacobi", "multigrid", "sor_pallas"):
+    if cfg.solver not in ("sor", "jacobi", "multigrid"):
         raise NotImplementedError(
-            f"sharded 3D step supports solver='sor'/'jacobi'/'multigrid'/"
-            f"'sor_pallas', got {cfg.solver!r} (there is no 3D fused "
-            f"projection kernel; use solver='sor_pallas' for the kernelized "
-            f"3D solve)")
-    use_kernel_advect = cfg.advect_impl == "pallas"
-    if use_kernel_advect and cfg.advector != "semilag":
-        raise NotImplementedError(
-            "the 3D gather kernel (ops/pallas/advect3d) is semilag-only; "
-            "use advect_impl='jnp' (or 'auto') with "
-            f"advector={cfg.advector!r}")
+            f"sharded 3D step supports solver='sor'/'jacobi'/'multigrid', "
+            f"got {cfg.solver!r}")
     halo_k = max(1, min(sor_halo, 2 * cfg.sor_iters))
     k = max_disp + 1
     dt, dx = cfg.dt, cfg.dx
@@ -87,13 +76,6 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         """Backtrace + trilinear gather in a k-halo horizontal window;
         the vertical axis is shard-local (domain clamp only)."""
         fpad = _exchange2(field, k)
-        if use_kernel_advect:
-            from ..ops.pallas.advect3d import advect3d_pallas
-            goff = jnp.stack([ox, oy]).astype(jnp.int32)
-            v = vel if sign == 1.0 else -vel
-            return advect3d_pallas(fpad, v, dt, no_slip, max_disp=max_disp,
-                                   global_offset=goff,
-                                   global_shape=(D, H, W), halo=k)
         gz = zz.astype(f32)
         gi = ii.astype(f32)
         gj = jj.astype(f32)
@@ -242,29 +224,6 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
             p = halves(pp, done, n_here)[:, kk:-kk, kk:-kk]
             done += n_here
         return p
-
-    def sor_kernel_local(d, ox, oy):
-        """ops/pallas/sor3d block mode, one wide exchange per sweep chunk
-        (the ``parallel.sharded_smoke.sor_kernel_local`` pattern with the
-        dye-bed config's omega)."""
-        from ..ops.pallas.sor3d import _sor3d_chunk
-        ck = min(getattr(cfg, "sor_chunk", 3), cfg.sor_iters)
-        g = 2 * ck
-        dg = _exchange2(d, g)
-        p = jnp.zeros_like(dg)
-        p_own = None
-        done = 0
-        while done < cfg.sor_iters:
-            kk = min(ck, cfg.sor_iters - done)
-            goff = jnp.stack([jnp.int32(0), ox - g, oy - g])
-            p_full = _sor3d_chunk(dg, p, dx, kk, cfg.omega, 16, 16, 256,
-                                  global_offset=goff,
-                                  global_shape=(D, H, W))
-            p_own = p_full[:, g:g + lh, g:g + lw]
-            done += kk
-            if done < cfg.sor_iters:
-                p = _exchange2(p_own, g)
-        return p_own
 
     def mg3d_local(d3):
         """Sharded 3D multigrid — delegates to the smoke model's hybrid
@@ -435,11 +394,9 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         ], axis=0)
         return vel + (cfg.vorticity_eps * dx * dt) * f
 
-    def solve_local(div, ii, jj, ox, oy):
+    def solve_local(div, ii, jj):
         if cfg.solver == "multigrid":
             return mg3d_local(div)
-        if cfg.solver == "sor_pallas":
-            return sor_kernel_local(div, ox, oy)
         return sor_local(div, ii, jj)
 
     def gmax(x):
@@ -470,7 +427,7 @@ def make_sharded_step_3d(cfg: SimConfig, mesh: Mesh, max_disp: int = 12,
         if cfg.vorticity_eps > 0.0:
             vel = vorticity_local(vel)
         div = divergence_local(vel)
-        p = solve_local(div, ii, jj, ox, oy)
+        p = solve_local(div, ii, jj)
         vel_out = gradient_sub_local(vel, p)
         color = advect_dispatch(state.color, vel_out, zz, ii, jj, ox, oy,
                                 no_slip=False)

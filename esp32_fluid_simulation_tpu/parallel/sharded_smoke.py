@@ -2,9 +2,10 @@
 
 The vertical axis (D, axis -3) stays local to every shard; the horizontal
 axes shard over the ``(x, y)`` mesh exactly like the 2D step — halo windows
-for the advection backtrace, per-half-sweep pressure halos, BC kernels only
-on global-edge shards.  Parity vs the single-device ``models.smoke3d`` step
-is pinned in tests/test_sharded_smoke.py on the virtual CPU mesh.
+for the advection backtrace, per-half-sweep pressure halos, boundary
+conditions only on global-edge shards.  Parity vs the single-device
+``models.smoke3d`` step is pinned in tests/test_sharded_smoke.py on the
+virtual CPU mesh.
 """
 
 from __future__ import annotations
@@ -42,9 +43,6 @@ def make_sharded_smoke_step(cfg: SmokeConfig, mesh: Mesh, max_disp: int = 4,
     if H % nx or W % ny:
         raise ValueError(f"grid {cfg.shape} not divisible by mesh ({nx},{ny})")
     lh, lw = H // nx, W // ny
-    # kernel path: each shard runs the 3D gather kernel on its local block
-    # + exchanged horizontal halos (ops/pallas/advect3d block mode)
-    use_kernel_advect = cfg.advect_impl == "pallas"
     k = max_disp + 1
     dt, dx = cfg.dt, cfg.dx
     f32 = jnp.float32
@@ -65,12 +63,6 @@ def make_sharded_smoke_step(cfg: SmokeConfig, mesh: Mesh, max_disp: int = 4,
 
     def advect_local(field, vel, zz, ii, jj, ox, oy, no_slip):
         fpad = _exchange2(field, k)
-        if use_kernel_advect:
-            from ..ops.pallas.advect3d import advect3d_pallas
-            goff = jnp.stack([ox, oy]).astype(jnp.int32)
-            return advect3d_pallas(fpad, vel, dt, no_slip, max_disp=max_disp,
-                                   global_offset=goff,
-                                   global_shape=(D, H, W), halo=k)
         gz = zz.astype(f32)
         gi = ii.astype(f32)
         gj = jj.astype(f32)
@@ -142,35 +134,6 @@ def make_sharded_smoke_step(cfg: SmokeConfig, mesh: Mesh, max_disp: int = 4,
                 p_new = one_m_w * p + w * (neg_inv * (dxd - nb))
                 p = jnp.where(parity == color, p_new, p)
         return p
-
-    # kernelized SOR (ops/pallas/sor3d block mode): per chunk of sweeps,
-    # ONE wide halo exchange (2*chunk ghost rings) replaces the composed
-    # path's per-half-sweep exchange; ghost cells evolve identically to the
-    # neighbor's owned cells, so re-exchanging between chunks keeps the
-    # continuation exact (same trapezoid argument as the 2D fused kernel).
-    use_kernel_sor = (cfg.solver == "sor"
-                      and getattr(cfg, "sor_impl", "auto") == "pallas")
-
-    def sor_kernel_local(d, ox, oy):
-        from ..ops.pallas.sor3d import _sor3d_chunk
-        ck = min(cfg.sor_chunk, cfg.sor_iters)
-        g = 2 * ck
-        dg = _exchange2(d, g)
-        p = jnp.zeros_like(dg)
-        p_own = None
-        done = 0
-        while done < cfg.sor_iters:
-            kk = min(ck, cfg.sor_iters - done)
-            goff = jnp.stack([jnp.int32(0), ox - g, oy - g])
-            p_full = _sor3d_chunk(dg, p, dx, kk, cfg.omega,
-                                  16, 16, 256,
-                                  global_offset=goff,
-                                  global_shape=(D, H, W))
-            p_own = p_full[:, g:g + lh, g:g + lw]
-            done += kk
-            if done < cfg.sor_iters:
-                p = _exchange2(p_own, g)
-        return p_own
 
     def shift_ec(x, axis):
         """(x[+1] - x[-1]) along ``axis`` with edge-clamped ghosts — the
@@ -355,8 +318,6 @@ def make_sharded_smoke_step(cfg: SmokeConfig, mesh: Mesh, max_disp: int = 4,
         div = divergence_local(vel)
         if cfg.solver == "multigrid":
             p = mg3d_local(div, zz, ii, jj)
-        elif use_kernel_sor:
-            p = sor_kernel_local(div, ox, oy)
         else:
             p = sor_local(div, zz, ii, jj)
         vel = gradient_sub_local(vel, p)

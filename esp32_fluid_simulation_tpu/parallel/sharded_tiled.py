@@ -2,7 +2,7 @@
 
 A ``SimConfig.domain_tile`` supergrid packs independent (mh, mw) member
 domains into one big grid; every boundary condition is a *member wall*
-(``ops/pallas/rb_common.py:146-158``, ``ops/pallas/advect.py`` member mode).
+(``models.stable_fluids._step_tiled``).
 Sharding that supergrid over an (x, y) device mesh with each shard owning
 WHOLE member tiles makes the step embarrassingly parallel: member walls
 never cross shard boundaries, so no halo exchange is needed at all — the

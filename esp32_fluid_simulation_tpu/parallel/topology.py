@@ -1,10 +1,11 @@
 """Device-mesh topology helpers.
 
 The reference's only "topology" is two ESP32 cores exchanging FreeRTOS
-semaphores (``.ino:243-245``); the TPU equivalent of scaling the domain is a
-``jax.sharding.Mesh`` whose axes partition the grid, with XLA collectives
-over ICI doing the strip exchanges (SURVEY.md §5 "long-context" analogue:
-halo exchange is the grid world's ring attention).
+semaphores (``.ino:243-245``); the device equivalent of scaling the domain
+is a ``jax.sharding.Mesh`` whose axes partition the grid, with XLA
+collectives over the device interconnect doing the strip exchanges
+(SURVEY.md §5 "long-context" analogue: halo exchange is the grid world's
+ring attention).
 
 Axis convention: mesh axes ``("batch", "x", "y")`` — ``batch`` for vmapped
 ensembles (data parallel), ``x``/``y`` partition the trailing two spatial

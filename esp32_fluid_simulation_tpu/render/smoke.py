@@ -9,17 +9,11 @@ final packed pixels leaving the device, same contract as the 2D render.
 Two reductions of the volume to a view plane:
 
 * ``mode="slice"``: one plane ``density[index]`` along ``axis``;
-* ``mode="mip"``:   ``max`` over ``axis`` — the standard smoke projection
-  (order-independent, so the Pallas kernel is bit-identical to the jnp
-  reference by construction).
+* ``mode="mip"``:   ``max`` over ``axis`` — the standard smoke projection.
 
 The view maps through a fire-style piecewise-linear colormap
 (t -> R saturates first, then G, then B — black→red→yellow→white) and packs
 exactly like the 2D path (``render.upscale.pack_rgb565`` bit semantics).
-
-On TPU, big MIP renders dispatch to the fused Pallas kernel
-(``render.pallas_smoke``): one pass over the volume, only uint16 pixels
-reach HBM.
 """
 
 from __future__ import annotations
@@ -66,20 +60,11 @@ def render_smoke(density: jax.Array, mode: str = "mip", axis: int = 0,
     ``.ino:164-176`` bit semantics); fmt="rgb8": uint8 ``[H', W', 3]`` for
     host-side PPM/PNG/GIF.  ``vmax`` rescales intensities (smoke density is
     source-clamped to [0, 1], so the default is exact).
-
-    Large TPU MIPs dispatch to the fused Pallas kernel
-    (``render.pallas_smoke.render_smoke_mip_pallas``, bit-exact: max is
-    order-independent and the colormap/pack expressions are identical).
     """
     if density.ndim != 3:
         raise ValueError(f"density must be [D, H, W], got {density.shape}")
     if fmt not in ("rgb565", "rgb8"):
         raise ValueError(f"unknown fmt {fmt!r}")
-    if (mode == "mip" and axis == 0 and fmt == "rgb565"
-            and jax.default_backend() == "tpu"
-            and density.shape[1] * density.shape[2] >= 128 * 128):
-        from .pallas_smoke import render_smoke_mip_pallas
-        return render_smoke_mip_pallas(density, bswap=bswap, vmax=vmax)
     view = _view(density, mode, axis, index)
     t = view.astype(jnp.float32) * jnp.float32(1.0 / vmax)
     rgb = heat_colormap(t)

@@ -6,11 +6,11 @@ separable bilinear interpolation (``.ino:128-162``) and packs
 ``Vector3<UQ32>`` to RGB565 by masking the top 5/6/5 bits of each 32-bit
 channel plus a byte swap for SPI order (``.ino:164-176``).
 
-TPU-first design: the reference's per-pixel incremental ``c += dc`` strength
-reduction is a scalar-CPU trick; here the same separable bilinear math is two
-broadcasted lerps (one fused XLA pass), and the whole render runs on device
-so only final packed pixels ever cross to the host (the BASELINE north-star
-requirement).  The last node row/column are lerp endpoints with no screen
+Device design: the reference's per-pixel incremental ``c += dc`` strength
+reduction is a scalar-CPU trick; here the same separable bilinear math is
+two broadcasted lerps (one fused XLA pass), and the whole render runs on
+device so only final packed pixels ever cross to the host (the BASELINE
+north-star requirement).  The last node row/column are lerp endpoints with no screen
 area (``.ino:115``), hence the output is ``((H-1)*s, (W-1)*s)``.
 """
 
@@ -73,26 +73,10 @@ def pack_rgb565(rgb: jax.Array, bswap: bool = True) -> jax.Array:
     return word.astype(jnp.uint16)
 
 
-@functools.partial(jax.jit, static_argnames=("s", "bswap", "unit_range"))
-def render_rgb565(color: jax.Array, s: int = 4, bswap: bool = True,
-                  unit_range: bool = False):
-    """Full on-device render: upscale + RGB565 pack.
-
-    Large upscales on TPU dispatch to the fused Pallas kernel
-    (``render.pallas_upscale``, bit-exact vs this path and ~3.5x faster at
-    4096^2 -> 16384^2: only uint16 pixels touch HBM).
-
-    ``unit_range=True`` asserts ``color`` lies in [0, 1] — true for any
-    stepped state of a ``semilag``/``rk2`` config, whose dye is clamped
-    every step (``models.stable_fluids.step``), and for ``init_state``
-    output — and lets the kernel drop the per-pixel lower clip.  Bit-exact
-    for in-range inputs; out-of-range inputs render differently."""
-    h, w = color.shape[-2], color.shape[-1]
-    if (s > 1 and jax.default_backend() == "tpu"
-            and (h - 1) * (w - 1) * s * s >= 1_000_000):
-        from .pallas_upscale import render_rgb565_pallas
-        return render_rgb565_pallas(color, s=s, bswap=bswap,
-                                    unit_range=unit_range)
+@functools.partial(jax.jit, static_argnames=("s", "bswap"))
+def render_rgb565(color: jax.Array, s: int = 4, bswap: bool = True):
+    """Full on-device render: upscale + RGB565 pack.  XLA fuses the lerps
+    and the pack into one loop, so only uint16 pixels are written."""
     return pack_rgb565(upscale_bilinear(color, s), bswap=bswap)
 
 
@@ -109,14 +93,8 @@ render_rgb8.__doc__ = """RGB888 render for host-side demo output (PNG/PPM)."""
 def decimate_mean(color: jax.Array, d: int) -> jax.Array:
     """d:1 mean-pool of ``[C, H, W]`` for the stream view (the LCD is
     smaller than the sim; the reference upscales, production grids
-    downsample).
-
-    Implementation note (round 5): a plain ``[:, ::d, ::d]`` strided slice
-    is catastrophic on TPU — measured 166 ms on a bf16 [3, 4096, 4096]
-    (it silently capped the interactive shell at ~12 FPS); XLA's
-    reduce_window is 24 ms (f32) / 3.7 s (bf16-add).  Two slice-add passes
-    (rows, then lanes on the already-halved array) run at 6.5 ms and
-    anti-alias for free.
+    downsample).  Two slice-add passes (rows, then columns on the
+    already-reduced array) anti-alias for free.
 
     Non-divisible dims are cropped to the largest d-multiple first (the
     reference's own 61x81 grid divides by nothing; the old strided slice
@@ -141,12 +119,10 @@ def decimate_mean(color: jax.Array, d: int) -> jax.Array:
 def render_rgbx(color: jax.Array, s: int = 4) -> jax.Array:
     """Packed RGBX8888 render: one uint32/px, little-endian R|G<<8|B<<16.
 
-    Full-color alternative wire format for the MJPEG stream: a
-    ``[H, W, 3]`` uint8 device output pads its size-3 minor axis to 128
-    TPU lanes (~42x layout blowup — measured as a 42 -> 12 FPS sim
-    collapse at 4096^2, round 5), while one uint32 plane keeps the natural
-    (8, 128) tiling; the native encoder consumes the 4-byte pixels
-    directly (libjpeg-turbo JCS_EXT_RGBX).  The server's default wire
+    Full-color alternative wire format for the MJPEG stream: one uint32
+    plane instead of a ``[H, W, 3]`` uint8 array with a size-3 minor axis;
+    the native encoder consumes the 4-byte pixels directly (libjpeg-turbo
+    JCS_EXT_RGBX).  The server's default wire
     format is RGB565 (half the device->host bytes, the reference's own
     display format, .ino:164-176); use this one when the stream must be
     8-bit lossless per channel.  Channel quantization matches

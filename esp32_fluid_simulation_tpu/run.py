@@ -25,6 +25,7 @@ from .models.stable_fluids import init_state
 from .models import make_step, make_step_with_metrics
 from .render import render_rgb8
 from .io_host.touch import scripted_swirl
+from .utils.compile_cache import enable_compile_cache
 from .utils.checkpoint import save_checkpoint, load_checkpoint, dump_arr
 from .utils.metrics import MetricsLogger, summarize
 from .utils.watchdog import make_guarded_step
@@ -96,6 +97,7 @@ def run_ensemble(args, cfg):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
 
     if args.resume:
         if args.grid or args.solver or args.config:

@@ -1,16 +1,10 @@
-"""Roofline estimator: speed-of-light step time for a config on a TPU.
+"""Roofline estimator: speed-of-light step time for a config on a device.
 
 The simulation is HBM-bandwidth-bound (stencils and gathers do a handful of
 flops per float); the roofline is therefore bytes-per-step / HBM bandwidth.
-This module itemizes the per-step traffic of each op under the two
-implementation paths and converts to an ideal FPS — the yardstick every
-kernel optimization is measured against (and the basis of the claims in
-docs/PERFORMANCE.md).
-
-Composed-jnp path: every op round-trips its operands through HBM.
-Fused-kernel path: advection reads field+vel once and writes once
-(plus the halo-overlap factor); the fused projection reads the velocity
-window once and writes velocity+pressure; render writes only uint16 pixels.
+This module itemizes the per-step traffic of each stage of the composed
+step (every op round-trips its operands through HBM) and converts to an
+ideal FPS — the yardstick a measured stage time is divided into.
 """
 
 from __future__ import annotations
@@ -22,17 +16,29 @@ from ..config import SimConfig
 
 
 @dataclasses.dataclass(frozen=True)
-class TpuSpec:
-    name: str
-    hbm_gbps: float          # HBM bandwidth, GB/s
-    vpu_tops: float          # vector unit, f32 Top/s (order of magnitude)
+class DeviceSpec:
+    hbm_bytes_per_s: float   # peak HBM bandwidth
+    hbm_bytes: float         # device memory
+    source: str
 
 
-TPU_SPECS = {
-    "v5e": TpuSpec("v5e", 819.0, 4.0),
-    "v5p": TpuSpec("v5p", 2765.0, 12.0),
-    "v6e": TpuSpec("v6e", 1640.0, 8.0),
+# Keyed by ``jax.devices()[0].device_kind``.  A device that is not listed
+# is an error: dividing by another card's peak would be a wrong number.
+DEVICE_SPECS = {
+    "NVIDIA H100 80GB HBM3": DeviceSpec(
+        hbm_bytes_per_s=3.35e12, hbm_bytes=80e9,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5 part"),
 }
+
+
+def device_spec(device_kind: str) -> DeviceSpec:
+    """Peak rates for ``device_kind``; raises ``KeyError`` if unknown."""
+    try:
+        return DEVICE_SPECS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak rates recorded for device_kind {device_kind!r}; add "
+            f"it to DEVICE_SPECS with its source") from None
 
 
 def _bytes(cfg: SimConfig, channels: int = 1) -> int:
@@ -43,47 +49,37 @@ def _bytes(cfg: SimConfig, channels: int = 1) -> int:
     return n * channels * itemsize
 
 
-def step_traffic_bytes(cfg: SimConfig, fused: bool) -> Dict[str, float]:
-    """Estimated HBM bytes per step, itemized per stage."""
+def step_traffic_bytes(cfg: SimConfig) -> Dict[str, float]:
+    """Estimated HBM bytes per composed step, itemized per stage."""
     nd = cfg.ndim
     vel = _bytes(cfg, nd)
     scal = _bytes(cfg, 1)
     col_item = 2 if cfg.color_dtype == "bfloat16" else 4
     col = _bytes(cfg, 3) * col_item // (2 if cfg.dtype == "bfloat16" else 4)
-    halo_overlap = 1.15  # tile halo re-reads in the fused kernels
 
     t = {}
-    if fused:
-        # pallas advect: read vel (backtrace input) + field window + write
-        t["advect_vel"] = (vel + vel * halo_overlap + vel)
-        t["advect_color"] = (vel + col * halo_overlap + col)
-        # fused projection: read vel window, write vel + pressure
-        t["projection"] = vel * halo_overlap + vel + scal
-    else:
-        # composed: advect does gather reads ~4 corners amortized to ~2x
-        t["advect_vel"] = vel * 3 + vel
-        t["advect_color"] = vel + col * 3 + col
-        # divergence (r vel, w div) + 2*iters half-sweeps (r p,d; w p) + grad
-        t["projection"] = (vel + scal) \
-            + 2 * cfg.sor_iters * (3 * scal) + (vel + scal + vel)
+    # advect: gathers read ~4 corners amortized to ~2-3x, plus the write
+    t["advect_vel"] = vel * 3 + vel
+    t["advect_color"] = vel + col * 3 + col
+    # divergence (r vel, w div) + 2*iters half-sweeps (r p,d; w p) + grad
+    t["projection"] = (vel + scal) \
+        + 2 * cfg.sor_iters * (3 * scal) + (vel + scal + vel)
     # render: read color (+ write uint16 pixels)
     px = 1
     for s in cfg.render_shape:
         px *= s
-    t["render"] = col * (halo_overlap if fused else 2.5) + px * 2
+    t["render"] = col * 2.5 + px * 2
     return t
 
 
-def speed_of_light(cfg: SimConfig, tpu: str = "v5e",
-                   fused: bool = True) -> Dict[str, float]:
-    """Ideal step time / FPS on ``tpu`` for this config."""
-    spec = TPU_SPECS[tpu]
-    traffic = step_traffic_bytes(cfg, fused)
+def speed_of_light(cfg: SimConfig, device_kind: str) -> Dict[str, float]:
+    """Ideal step time / FPS on ``device_kind`` for this config."""
+    spec = device_spec(device_kind)
+    traffic = step_traffic_bytes(cfg)
     total = sum(traffic.values())
-    ms = total / (spec.hbm_gbps * 1e9) * 1e3
+    ms = total / spec.hbm_bytes_per_s * 1e3
     return {
-        "tpu": tpu,
-        "fused": fused,
+        "device_kind": device_kind,
         "bytes_per_step": total,
         "ideal_ms_per_step": ms,
         "ideal_fps": 1e3 / ms if ms > 0 else float("inf"),

@@ -5,7 +5,7 @@ range maps onto [0, 1) — so the top 5/6/5 bits of a channel are directly the
 RGB565 component (``uq32.h:8-16``, ``.ino:170-172``).  float->UQ32 rounds via
 ``raw(x + 0.5f)`` (``uq32.h:13``); UQ32->float is a plain cast.
 
-The TPU framework stores dye as unit-scale float (quantization error 2^-33 is
+The framework stores dye as unit-scale float (quantization error 2^-33 is
 below float32 epsilon, so UQ32 round-tripping is numerically invisible);
 these helpers exist to *prove* that equivalence in tests and to emulate the
 bit-exact RGB565 packing.

@@ -1,9 +1,8 @@
 """Failure detection and elastic recovery.
 
 The reference has none (crashes acknowledged in ``README.md:11``); SOR with
-omega=1.96 can go unstable if forcing violates its assumptions.  TPU-native
-equivalent: an on-device finiteness check fused into the step, with
-``lax.cond``-style recovery to the initial state on divergence — the
+omega=1.96 can go unstable if forcing violates its assumptions.  Here: an
+on-device finiteness check fused into the step, with ``lax.cond``-style recovery to the initial state on divergence — the
 structural analogue of a supervisor restarting a crashed task.  Fault
 injection (salting the state with NaN/Inf) is exercised in
 ``tests/test_model.py::test_watchdog_detects_and_resets``.

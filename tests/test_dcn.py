@@ -1,8 +1,9 @@
 """Multi-host (DCN) communication-backend dryrun (SURVEY §5).
 
 The sharded step's collectives must work when the mesh SPANS PROCESSES —
-the CPU stand-in for a multi-host TPU pod (``jax.distributed.initialize``
-+ gloo TCP collectives standing in for DCN).  The worker asserts numeric
+the CPU stand-in for a multi-host device mesh
+(``jax.distributed.initialize`` + gloo TCP collectives standing in for
+DCN).  The worker asserts numeric
 parity of every process's addressable shards against the single-device
 trajectory, so this pins the cross-process halo exchange end to end.
 

@@ -1,8 +1,11 @@
 """Model-level tests: step mechanics, impulses, config, checkpoint, watchdog."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from esp32_fluid_simulation_tpu import (SimConfig, SimState, Impulses,
                                         init_state, make_step)
@@ -199,3 +202,80 @@ def test_multi_step_scan_matches_sequential():
     np.testing.assert_array_equal(np.asarray(st_a.color),
                                   np.asarray(st_b.color))
     assert int(st_b.step) == 5
+
+
+# -- step_render composes step and render in one program -----------------
+
+@pytest.mark.parametrize("bswap", [True, False])
+@pytest.mark.parametrize("cfg_kw", [
+    dict(color_dtype="float32"),
+    dict(color_dtype="bfloat16"),
+    dict(color_dtype="bfloat16", domain_tile=(32, 64)),
+], ids=["f32", "bf16", "bf16_tiled"])
+def test_step_render_matches_step_then_render(cfg_kw, bswap):
+    """step_render(scaling=1) == render_rgb565(step(...).color, s=1),
+    bit for bit, on a single domain and on a tiled supergrid."""
+    from esp32_fluid_simulation_tpu import render_rgb565, step, step_render
+    cfg = SimConfig(shape=(64, 128), scaling=1, sor_iters=4, **cfg_kw)
+    st = init_state(cfg)
+    imp = Impulses.from_lists(cfg, [(5, 7), (20, 40), (40, 100)],
+                              [(30.0, -12.0), (-8.0, 25.0), (50.0, 60.0)])
+    got, frame = jax.jit(functools.partial(step_render, cfg=cfg,
+                                           bswap=bswap))(st, imp)
+    ref = jax.jit(functools.partial(step, cfg=cfg))(st, imp)
+    want = render_rgb565(ref.color, s=1, bswap=bswap)
+    assert frame.shape == (63, 127) and frame.dtype == jnp.uint16
+    np.testing.assert_array_equal(np.asarray(got.velocity),
+                                  np.asarray(ref.velocity))
+    np.testing.assert_array_equal(np.asarray(got.color, F),
+                                  np.asarray(ref.color, F))
+    np.testing.assert_array_equal(np.asarray(frame), np.asarray(want))
+
+
+@pytest.mark.parametrize("positions", [
+    [(20, 30), (20, 30), (40, 50)],
+    [(20, 30), (40, 50), (20, 30), (99, -3), (61, 96)],
+], ids=["duplicate", "duplicate_and_clamped"])
+def test_impulses_last_wins_through_projection(rng, positions):
+    """Queue-drain order (the LAST active slot wins at a duplicated cell,
+    out-of-range positions clamp) survives the projection: apply_impulses
+    then divergence -> RB-SOR -> gradient == the oracle's .ino:264-278."""
+    import oracle
+    from esp32_fluid_simulation_tpu.models.stable_fluids import _project
+    cfg = SimConfig(shape=(64, 96), sor_iters=3)
+    vel = rng.normal(0, 40, (2, 64, 96)).astype(F)
+    vels = [(90.0, -45.0), (33.0, 44.0), (-60.0, 120.0), (7.0, 8.0),
+            (-5.0, 6.0)][:len(positions)]
+    imp = Impulses.from_lists(cfg, positions, vels)
+    got = np.asarray(_project(apply_impulses(jnp.asarray(vel), imp), cfg))
+    v = oracle.apply_impulses(np.moveaxis(vel, 0, -1).copy(),
+                              list(zip(positions, vels)))
+    p = oracle.poisson_solve(oracle.divergence(v), iters=3)
+    want = np.moveaxis(oracle.subtract_gradient(v, p), -1, 0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+# -- options that once selected a hand-written kernel are refused --------
+
+@pytest.mark.parametrize("kw", [
+    dict(advect_impl="pallas"), dict(advect_impl="jnp"),
+    dict(advect_max_disp=12), dict(advect_sample_dtype="bfloat16"),
+    dict(solver="sor_pallas"), dict(solver="fused_pallas"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_config_rejects_removed_kernel_options(kw):
+    import json
+    import dataclasses
+    with pytest.raises(ValueError, match="removed.*(drop it|use solver)"):
+        SimConfig(**kw)
+    with pytest.raises(ValueError, match="removed"):
+        SimConfig.from_json(json.dumps({"shape": [8, 8], **kw}))
+    with pytest.raises(ValueError, match="removed"):
+        dataclasses.replace(SimConfig(), **kw)
+
+
+@pytest.mark.parametrize("field", ["advect_impl", "advect_max_disp",
+                                   "sor_impl", "sor_chunk"])
+def test_smoke_config_rejects_removed_kernel_options(field):
+    from esp32_fluid_simulation_tpu.models.smoke3d import SmokeConfig
+    with pytest.raises(ValueError, match=f"{field}.*removed"):
+        SmokeConfig(**{field: 2})

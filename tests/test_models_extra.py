@@ -197,7 +197,7 @@ def test_tiled_ensemble_helpers():
     from esp32_fluid_simulation_tpu.models.ensemble import (
         tiled_ensemble_config, tiled_member_impulses)
     member = SimConfig(shape=(24, 40), sor_iters=4)
-    cfg, gh, gw = tiled_ensemble_config(member, 6, solver="sor")
+    cfg, gh, gw = tiled_ensemble_config(member, 6)
     assert gh * gw == 6 and cfg.shape == (gh * 24, gw * 40)
     assert cfg.domain_tile == (24, 40)
 
@@ -213,18 +213,6 @@ def test_tiled_ensemble_helpers():
         [([], [])] * 5 + [([(3, 4)], [(1.0, 2.0)])])
     oi, oj = (5 // gw) * 24, (5 % gw) * 40
     assert tuple(np.asarray(imp2.pos[0])) == (oi + 3, oj + 4)
-
-
-def test_pick_tile_properties():
-    from esp32_fluid_simulation_tpu.ops.pallas.tiling import pick_tile
-    for n in (61, 200, 1024, 4096, 4097, 8192):
-        t = pick_tile(n, 24, 8, 256)
-        assert t % 8 == 0 and 8 <= t <= 256
-        # never worse than the naive max tile
-        naive = min(256, -(-n // 8) * 8)
-        cost = (-(-n // t)) * (t + 48)
-        cost_naive = (-(-n // naive)) * (naive + 48)
-        assert cost <= cost_naive
 
 
 def test_ensemble_auto_tiled_matches_vmap():

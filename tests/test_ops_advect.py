@@ -153,3 +153,60 @@ def test_rk2_zero_velocity_identity(rng):
     v = jnp.zeros((2,) + SHAPE, F)
     out = advect_rk2(jnp.asarray(f), v, 1 / 30, no_slip=True)
     np.testing.assert_allclose(np.asarray(out), f, atol=1e-7)
+
+
+# -- the XLA-compiled op at the production step's shapes and options ------
+# (the shapes the removed hand-written advection kernel was pinned at)
+
+def _oracle_advect(f, v, dt, no_slip):
+    """``[C?, H, W]`` field through ``oracle.advect`` channel by channel."""
+    vel = np.moveaxis(v, 0, -1)
+    if f.ndim == 2:
+        return oracle.advect(f, vel, dt, no_slip)
+    return np.stack([oracle.advect(c, vel, dt, no_slip) for c in f])
+
+
+@pytest.mark.parametrize("no_slip", [False, True])
+@pytest.mark.parametrize("shape", [(61, 81), (96, 200)])
+def test_advect_matches_oracle_at_step_shapes(rng, shape, no_slip):
+    f = _rand_field(rng, shape)
+    v = _rand_vel(rng, shape, scale=60.0)
+    got = np.asarray(advect(jnp.asarray(f), jnp.asarray(v), 1 / 30., no_slip))
+    np.testing.assert_allclose(got, _oracle_advect(f, v, 1 / 30., no_slip),
+                               rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_dye_advect_clip01_matches_oracle(rng, dtype):
+    """The step's dye stage, ``clip(advect(dye), 0, 1)``, with values pushed
+    outside [0, 1] so the clamp acts.  bf16 dye interpolates in bf16: the
+    nested lerp rounds three times at magnitudes below 2 (ulp 2^-7)."""
+    shape = (48, 96)
+    f = (3.0 * _rand_field(rng, shape, channels=3) - 1.0)
+    f = np.asarray(jnp.asarray(f).astype(dtype), F)
+    v = _rand_vel(rng, shape, scale=90.0)
+    got = jnp.clip(advect(jnp.asarray(f).astype(dtype), jnp.asarray(v),
+                          1 / 30., no_slip=False), 0.0, 1.0)
+    assert got.dtype == dtype
+    want = np.clip(_oracle_advect(f, v, 1 / 30., False), 0.0, 1.0)
+    tol = 2e-5 if dtype == jnp.float32 else 3 * 2 ** -7
+    np.testing.assert_allclose(np.asarray(got, F), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(96, 256), (88, 200)])
+def test_self_advect_matches_oracle(rng, shape):
+    """Velocity self-advect (no-slip), the step's first stage."""
+    v = _rand_vel(rng, shape, scale=80.0)
+    got = np.asarray(advect(jnp.asarray(v), jnp.asarray(v), 1 / 30., True))
+    vel = np.moveaxis(v, 0, -1)
+    want = np.moveaxis(oracle.advect(vel, vel, 1 / 30., True), -1, 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
+
+
+def test_advect_multichannel_matches_oracle(rng):
+    shape = (96, 200)
+    f = _rand_field(rng, shape, channels=3)
+    v = _rand_vel(rng, shape, scale=30.0)
+    got = np.asarray(advect(jnp.asarray(f), jnp.asarray(v), 1 / 30., False))
+    np.testing.assert_allclose(got, _oracle_advect(f, v, 1 / 30., False),
+                               rtol=1e-5, atol=2e-5)

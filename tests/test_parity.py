@@ -1,4 +1,4 @@
-"""Physics-parity gate: the jitted TPU step vs the C++ transliteration
+"""Physics-parity gate: the jitted step vs the C++ transliteration
 oracle at the reference 61x81 grid with scripted impulses (BASELINE config 1,
 SURVEY.md §4.2)."""
 

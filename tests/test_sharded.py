@@ -1,6 +1,6 @@
 """Sharded-vs-single-device parity on an 8-virtual-device CPU mesh
 (SURVEY.md §4.3: the standard JAX trick — the identical code then runs on a
-real TPU mesh)."""
+real device mesh)."""
 
 import numpy as np
 import jax
@@ -146,12 +146,12 @@ def test_sharded_vorticity_matches_single_device():
 
 
 def test_sharded_rejects_unsupported_configs():
-    # 3D configs now dispatch to parallel.sharded3d (round 5); what remains
-    # unsupported there is the fused projection kernel (2D-only).
+    # 3D configs dispatch to parallel.sharded3d; what remains unsupported
+    # there is the residual-targeted solve (single-device only).
     mesh = _mesh_2x4()
     with pytest.raises(NotImplementedError):
         make_sharded_step(SimConfig(shape=(16, 16, 16),
-                                    solver="fused_pallas"), mesh)
+                                    solver="sor_adaptive"), mesh)
 
 
 def test_sharded_rk2_matches_single_device():
@@ -205,48 +205,6 @@ def test_sharded_step_with_metrics_matches_single_device():
                                    rtol=1e-4, atol=1e-5)
 
 
-def _interpret_pallas(monkeypatch):
-    import functools
-    from jax.experimental import pallas as pl
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-
-
-@pytest.mark.parametrize("solver", ["fused_pallas", "sor_pallas"])
-def test_sharded_kernel_solvers_match_single_device(monkeypatch, solver):
-    """The flagship Pallas kernels under shard_map (VERDICT r1 #3): each
-    shard runs the whole solve on its local block after ONE wide halo
-    exchange; parity vs the single-device jnp step on the CPU mesh
-    (interpret-mode kernels)."""
-    _interpret_pallas(monkeypatch)
-    mesh = _mesh_2x4()
-    kcfg = SimConfig(shape=(64, 96), sor_iters=3, solver=solver,
-                     advect_impl="pallas", advect_max_disp=8)
-    ref = SimConfig(shape=(64, 96), sor_iters=3, solver="sor",
-                    advect_impl="jnp")
-    imp = Impulses.from_lists(ref, [(20, 30), (40, 50)],
-                              [(90.0, -45.0), (-60.0, 120.0)])
-
-    st = init_state(ref)
-    fn1 = make_step(ref, donate=False)
-    for t in range(3):
-        st = fn1(st, imp if t == 0 else Impulses.none(ref))
-
-    st_sh = jax.device_put(init_state(kcfg),
-                           sharded_state_sharding(kcfg, mesh))
-    fns = make_sharded_step(kcfg, mesh, max_disp=kcfg.advect_max_disp,
-                            donate=False)
-    for t in range(3):
-        st_sh = fns(st_sh, imp if t == 0 else Impulses.none(kcfg))
-
-    np.testing.assert_allclose(np.asarray(st_sh.velocity),
-                               np.asarray(st.velocity),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_sh.color),
-                               np.asarray(st.color),
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_sharded_maccormack_matches_single_device():
     cfgm = SimConfig(shape=(64, 96), advector="maccormack")
     mesh = _mesh_2x4()
@@ -297,36 +255,4 @@ def test_sharded_multigrid_matches_single_device():
         st_sh = fns(st_sh, imp if t == 0 else Impulses.none(cfgm))
     np.testing.assert_allclose(np.asarray(st_sh.velocity),
                                np.asarray(st.velocity),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_sharded_maccormack_kernel_matches_jnp(monkeypatch):
-    """advect_impl='pallas' + advector='maccormack' under shard_map: the
-    block-mode kernel (incl. return_minmax clamp bounds) == the shard-local
-    jnp MacCormack, interpret-mode Mosaic on the CPU mesh."""
-    import functools
-    from jax.experimental import pallas as pl
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-    mesh = _mesh_2x4()
-    ref = SimConfig(shape=(64, 96), advector="maccormack", sor_iters=3,
-                    advect_impl="jnp")
-    kcfg = SimConfig(shape=(64, 96), advector="maccormack", sor_iters=3,
-                     advect_impl="pallas", advect_max_disp=8)
-    imp = Impulses.from_lists(ref, [(32, 48)], [(150.0, -90.0)])
-
-    st_r = jax.device_put(init_state(ref), sharded_state_sharding(ref, mesh))
-    fn_r = make_sharded_step(ref, mesh, max_disp=8, donate=False)
-    st_k = jax.device_put(init_state(kcfg),
-                          sharded_state_sharding(kcfg, mesh))
-    fn_k = make_sharded_step(kcfg, mesh, max_disp=8, donate=False)
-    for t in range(3):
-        im = imp if t == 0 else Impulses.none(ref)
-        st_r = fn_r(st_r, im)
-        st_k = fn_k(st_k, im)
-    np.testing.assert_allclose(np.asarray(st_k.velocity),
-                               np.asarray(st_r.velocity),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_k.color),
-                               np.asarray(st_r.color),
                                rtol=1e-4, atol=1e-4)

@@ -129,37 +129,7 @@ def test_sharded3d_metrics_match_single_device():
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_sharded3d_kernel_paths_match_jnp(monkeypatch):
-    """advect_impl='pallas' (3D gather kernel block mode) and
-    solver='sor_pallas' (packed-RB 3D chunk) under shard_map match the
-    jnp sharded step, interpret-mode Mosaic on the CPU mesh."""
-    import functools
-    from jax.experimental import pallas as pl
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-    mesh = _mesh_2x4()
-    ref = _cfg(advect_impl="jnp", solver="sor", sor_iters=3)
-    kcfg = _cfg(advect_impl="pallas", solver="sor_pallas", sor_iters=3,
-                advect_max_disp=MD)
-    imp = _imp(ref)
-    st_r = jax.device_put(init_state(ref), sharded_state_sharding(ref, mesh))
-    st_k = jax.device_put(init_state(kcfg),
-                          sharded_state_sharding(kcfg, mesh))
-    fn_r = make_sharded_step(ref, mesh, max_disp=MD, donate=False)
-    fn_k = make_sharded_step(kcfg, mesh, max_disp=MD, donate=False)
-    for t in range(2):
-        im = imp if t == 0 else Impulses.none(ref)
-        st_r = fn_r(st_r, im)
-        st_k = fn_k(st_k, im)
-    np.testing.assert_allclose(np.asarray(st_k.velocity),
-                               np.asarray(st_r.velocity),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_k.color),
-                               np.asarray(st_r.color),
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_sharded3d_rejects_unsupported():
     mesh = _mesh_2x4()
-    with pytest.raises(NotImplementedError, match="fused"):
-        make_sharded_step(_cfg(solver="fused_pallas"), mesh)
+    with pytest.raises(NotImplementedError, match="sor_adaptive"):
+        make_sharded_step(_cfg(solver="sor_adaptive"), mesh)

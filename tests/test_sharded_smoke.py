@@ -128,68 +128,3 @@ def test_sharded_smoke_bf16_default_matches_single_device():
                                np.asarray(st.density, np.float32),
                                rtol=0.02, atol=4e-3)
     assert float(jnp.max(st_sh.density.astype(jnp.float32))) > 0.01
-
-
-def test_sharded_smoke_kernel_advect_matches_single_device(monkeypatch):
-    """The 3D gather kernel under shard_map (block mode): each shard advects
-    its local block + exchanged horizontal halos; parity vs the
-    single-device jnp step (interpret-mode kernels on the CPU mesh)."""
-    import functools
-    from jax.experimental import pallas as pl
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-    cfg = SmokeConfig(shape=(16, 16, 32), solver="sor", sor_iters=4,
-                      omega=1.5, advect_impl="pallas", **_F32)
-    ref = SmokeConfig(shape=(16, 16, 32), solver="sor", sor_iters=4,
-                      omega=1.5, advect_impl="jnp", **_F32)
-    mesh = make_mesh(jax.devices()[:8], grid_shape=(2, 4))
-
-    single = make_smoke_step(ref, donate=False)
-    st = init_smoke(ref)
-    for _ in range(6):
-        st = single(st)
-
-    sharded = make_sharded_smoke_step(cfg, mesh, max_disp=4, donate=False)
-    st_sh = jax.device_put(init_smoke(cfg), sharded_smoke_sharding(cfg, mesh))
-    for _ in range(6):
-        st_sh = sharded(st_sh)
-
-    np.testing.assert_allclose(np.asarray(st_sh.velocity),
-                               np.asarray(st.velocity),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_sh.density),
-                               np.asarray(st.density),
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_sharded_smoke_kernel_sor_matches_single_device(monkeypatch):
-    """sor_impl='pallas' under shard_map: chunked block-mode sor3d kernel
-    (one wide exchange per chunk) == the single-device jnp solve
-    (interpret-mode Mosaic on the CPU mesh)."""
-    import functools
-    from jax.experimental import pallas as pl
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-    ref = SmokeConfig(shape=(16, 16, 32), solver="sor", sor_iters=5,
-                      omega=1.5, **_F32)
-    kcfg = SmokeConfig(shape=(16, 16, 32), solver="sor", sor_iters=5,
-                       omega=1.5, sor_impl="pallas", sor_chunk=2, **_F32)
-    mesh = make_mesh(jax.devices()[:8], grid_shape=(2, 4))
-
-    single = make_smoke_step(ref, donate=False)
-    st = init_smoke(ref)
-    for _ in range(4):
-        st = single(st)
-
-    sharded = make_sharded_smoke_step(kcfg, mesh, max_disp=4, donate=False)
-    st_sh = jax.device_put(init_smoke(kcfg),
-                           sharded_smoke_sharding(kcfg, mesh))
-    for _ in range(4):
-        st_sh = sharded(st_sh)
-
-    np.testing.assert_allclose(np.asarray(st_sh.velocity),
-                               np.asarray(st.velocity),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_sh.density),
-                               np.asarray(st.density),
-                               rtol=1e-4, atol=1e-5)

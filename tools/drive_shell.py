@@ -7,7 +7,7 @@ produces, and measures the drag -> visible-vortex latency (first streamed
 frame whose pixels moved near the drag path).  Frames before/after are
 written for visual inspection.
 
-  python tools/drive_shell.py --port 8123 [--out /tmp/shell]
+  python tools/drive_shell.py --port 8123 [--out shell_out]
 """
 
 import argparse
@@ -60,7 +60,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=8123)
     ap.add_argument("--host", default="localhost")
-    ap.add_argument("--out", default="/tmp/shell")
+    ap.add_argument("--out", default="shell_out")
     args = ap.parse_args()
     import os
     import numpy as np

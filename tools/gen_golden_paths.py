@@ -76,8 +76,8 @@ def gen_smoke():
 def main():
     # Pin CPU only when RUN as a generator — at import time (the test module
     # shares CONFIGS/STEPS/schedule) this would silently force the whole
-    # pytest process off the TPU (code-review r3).  The goldens are CPU
-    # artifacts; CI's conftest pins CPU for the comparison.
+    # pytest process off the accelerator.  The goldens are CPU artifacts;
+    # CI's conftest pins CPU for the comparison.
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
     for name, cfg in CONFIGS.items():
